@@ -1,7 +1,7 @@
 """Batched-env benchmark: vmapped Move-v1 envs on the available device mesh
-(BASELINE.json config 5 calls for 256 envs x 25k particles on a v4-8 slice;
-this measures what the current slice supports — on one chip the mesh is 1-D
-of size 1 and vmap carries the whole batch).
+(BASELINE.json config 5 calls for 256 envs x 25k particles; this measures
+what the available devices support — on one device the mesh is 1-D of size
+1 and vmap carries the whole batch).
 
 Prints one JSON line per configuration.
 """
@@ -13,14 +13,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-
-
-def _rows_path_used(scene):
-    import jax.numpy as jnp
-
-    from plasticinelab_tpu.engine import mpm
-
-    return bool(mpm.use_rows_path(scene, jnp.float32))
 
 
 def main(batch=int(os.environ.get("BENCH_BATCH", "32")),
@@ -84,7 +76,7 @@ def main(batch=int(os.environ.get("BENCH_BATCH", "32")),
                   "wallclock_s": round(best, 3),
                   "compile_s": round(compile_s, 1),
                   "n_particles": scene.simulator.n_particles,
-                  "rows_path": _rows_path_used(scene)},
+                  "device": jax.devices()[0].device_kind},
     }))
 
 

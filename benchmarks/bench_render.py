@@ -1,6 +1,6 @@
 """Renderer benchmark: full frame (512x512, 50 spp by default) on the chip.
 
-Target (VERDICT r1 item 6): <= 10 s/frame steady-state. Prints one JSON
+Target: <= 10 s/frame steady-state. Prints one JSON
 line with seconds/frame and the per-sample cost.
 """
 import json

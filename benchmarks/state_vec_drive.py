@@ -1,7 +1,7 @@
 """State-observation RL training drive at batch scale: SAC/DisCor/TD3 on B
 vectorized on-device envs (the reference's 500k-env-step benchmark,
 run_sac.py / agent.py in /root/reference/plb/algorithms/discor, re-hosted on
-the batched TPU rollout path).
+the batched on-device rollout path).
 
 Training cadence matches the reference agent loop (agent.py:94-111 +
 run_sac.py:30-38): start_steps=2500 uniform exploration, then ONE gradient
@@ -16,7 +16,7 @@ Every `eval_every` episode batches the drive runs one EXPLOITATION episode
 return plus mean final-step **incremental IoU** — the benchmark's headline
 metric (reference loss.py:293-294).
 
-The whole data path is device-resident: obs/reward stay on the TPU, the
+The whole data path is device-resident: obs/reward stay on the device, the
 replay buffer is a DeviceReplayBuffer (one batched-scatter write per step),
 and updates sample their minibatches in-graph.
 

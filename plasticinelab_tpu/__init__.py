@@ -1,22 +1,20 @@
-"""plasticinelab_tpu: TPU-native differentiable soft-body manipulation
-benchmark (JAX/XLA/Pallas rebuild of PlasticineLab).
+"""plasticinelab_tpu: differentiable soft-body manipulation benchmark — a
+JAX/XLA rebuild of PlasticineLab.
 
-Importing the package wires JAX's persistent compilation cache (off with
-PLB_COMPILE_CACHE=0, elsewhere with PLB_COMPILE_CACHE=<dir>): batched
-programs compile in O(10 min) cold (BENCH_BATCHED_r03 tracked 914 s at
-B=128) and O(seconds) warm, so every entry point — not just the test
-suite — should hit the cache.
+Importing the package wires JAX's persistent compilation cache: into
+$JAX_COMPILATION_CACHE_DIR when that is set (JAX reads it itself), and
+otherwise into <checkout>/.jaxcache (gitignored). A fixed path matters: the
+path is part of the cache key, and the 950-substep trajectory gradient is
+one large program, so every entry point — not just the test suite — should
+hit the cache.
 """
 import os as _os
 
 import jax as _jax
 
-# Default cache lives inside the repo (gitignored) so it survives VM
-# restarts — /tmp does not, and a cold cache costs O(min) per distinct scene.
-_default_cache = _os.path.join(_os.path.dirname(_os.path.dirname(
-    _os.path.abspath(__file__))), ".jaxcache")
-_cache = _os.environ.get("PLB_COMPILE_CACHE", _default_cache)
-if _cache != "0" and _jax.config.jax_compilation_cache_dir is None:
-    _jax.config.update("jax_compilation_cache_dir", _cache)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jaxcache"))
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+_jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

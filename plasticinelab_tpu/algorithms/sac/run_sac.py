@@ -139,7 +139,7 @@ def train_vec(env, algo, path, args, batch=8, horizon=50, venv=None,
               start_steps=2500):
     """Collect transitions with the batched on-device env
     (parallel/rollout.VecPlasticineEnv): B envs step in one jitted program,
-    the learner updates once per collected transition-batch — the TPU-native
+    the learner updates once per collected transition-batch — the batched
     alternative to the reference's one-env host loop (discor/agent.py)."""
     import time
 
@@ -152,9 +152,9 @@ def train_vec(env, algo, path, args, batch=8, horizon=50, venv=None,
             image_obs_res=getattr(args, "image_obs_res", 64),
             image_obs_spp=getattr(args, "image_obs_spp", 2))
     batch, horizon = venv.batch, venv.horizon
-    # Device-resident replay: collected obs never leave the chip and the
-    # update samples its minibatches in-graph — the host numpy buffer's
-    # per-step D2H/H2D transfers dominated this loop on TPU.
+    # Device-resident replay: collected obs never leave the device and the
+    # update samples its minibatches in-graph — no per-step D2H/H2D
+    # transfers of the host numpy buffer.
     if venv.obs_mode == "rgb":
         from ..common import DeviceImageReplayBuffer
 

@@ -1,7 +1,9 @@
 """CLI: python -m plasticinelab_tpu.algorithms.solve --algo action --env_name Move-v1
 
 Behavioral reference: plb/algorithms/solve.py — same flags, same default
-budgets (50x200 env steps for differentiable solvers, 500k for RL).
+budgets (50x200 env steps for differentiable solvers, 500k for RL). The
+differentiable solvers (action, nn) drive the task's PhysicsEnv directly and
+need neither gymnasium nor flax; the RL algorithms build the gymnasium env.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ def get_args(argv=None):
                         help="TD3-family variant (reference TD3/main.py)")
     parser.add_argument("--vec_envs", type=int, default=0,
                         help="collect RL data with N batched on-device envs "
-                             "(TPU-native extension; 0 = reference loop)")
+                             "(batched extension; 0 = reference loop)")
     parser.add_argument("--obs_mode", type=str, default="state",
                         choices=["state", "rgb"],
                         help="rgb = rendered 64x64 image observations "
@@ -57,36 +59,49 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
+HORIZON = 50  # env steps per episode (reference TimeLimit, envs/__init__.py)
+
+
 def main(argv=None):
-    from ..envs import make
     from .logger import Logger
 
     args = get_args(argv)
     if args.num_steps is None:
-        args.num_steps = 50 * 200 if args.algo in DIFF_ALGOS else 500000
+        args.num_steps = HORIZON * 200 if args.algo in DIFF_ALGOS else 500000
 
     logger = Logger(args.path)
     set_random_seed(args.seed)
+    loss_weights = dict(
+        sdf_loss=args.sdf_loss, density_loss=args.density_loss,
+        contact_loss=args.contact_loss,
+        soft_contact_loss=args.soft_contact_loss)
+
+    if args.algo in DIFF_ALGOS:
+        from ..envs import make_physics
+
+        te = make_physics(args.env_name, nn=(args.algo == "nn"),
+                          **loss_weights)
+        if args.algo == "action":
+            from ..optimizer.solver import solve_action
+
+            solve_action(te, args.path, logger, args, HORIZON)
+        else:
+            from ..optimizer.solver_nn import solve_nn
+
+            solve_nn(te, args.path, logger, args, HORIZON)
+        return
+
+    from ..envs import make
 
     env = make(
-        args.env_name, nn=(args.algo == "nn"), sdf_loss=args.sdf_loss,
-        density_loss=args.density_loss, contact_loss=args.contact_loss,
-        soft_contact_loss=args.soft_contact_loss,
+        args.env_name, max_episode_steps=HORIZON,
         obs_mode=getattr(args, "obs_mode", "state"),
         image_obs_res=getattr(args, "image_obs_res", 64),
-        image_obs_spp=getattr(args, "image_obs_spp", 2),
+        image_obs_spp=getattr(args, "image_obs_spp", 2), **loss_weights,
     )
     env.unwrapped.seed(args.seed)
 
-    if args.algo == "action":
-        from ..optimizer.solver import solve_action
-
-        solve_action(env, args.path, logger, args)
-    elif args.algo == "nn":
-        from ..optimizer.solver_nn import solve_nn
-
-        solve_nn(env, args.path, logger, args)
-    elif args.algo in ("sac", "discor"):
+    if args.algo in ("sac", "discor"):
         # "discor" = SAC + the DisCor error model (sac/discor.py); the
         # reference vendors DisCor (plb/algorithms/discor/algorithm/discor.py)
         # but solve.py only ever builds plain SAC — here it is selectable.
@@ -102,7 +117,7 @@ def main(argv=None):
 
         train_ppo(env, args.path, logger, args)
     elif args.algo == "acktr":
-        # TPU extension: the reference ships ACKTR (ppo/algo/a2c_acktr.py)
+        # Extension: the reference ships ACKTR (ppo/algo/a2c_acktr.py)
         # but never exposes it from solve.py; here it is a first-class algo.
         from .ppo.run_ppo import train_ppo
 

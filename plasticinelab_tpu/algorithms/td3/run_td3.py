@@ -130,7 +130,7 @@ def train_td3_vec(policy, old_args, path, batch=8, horizon=50, venv=None,
                   start_timesteps=2500):
     """Collect transitions with the batched on-device env
     (parallel/rollout.VecPlasticineEnv): B envs step in one jitted program,
-    one learner update per collected transition-batch — the TPU-native
+    one learner update per collected transition-batch — the batched
     alternative to the reference's one-env host loop (TD3/run_td3.py)."""
     import time
 
@@ -144,9 +144,9 @@ def train_td3_vec(policy, old_args, path, batch=8, horizon=50, venv=None,
             image_obs_res=getattr(old_args, "image_obs_res", 64),
             image_obs_spp=getattr(old_args, "image_obs_spp", 2))
     batch, horizon = venv.batch, venv.horizon
-    # Device-resident replay: collected obs never leave the chip and the
-    # update samples its minibatches in-graph — the host numpy buffer's
-    # per-step D2H/H2D transfers dominated this loop on TPU.
+    # Device-resident replay: collected obs never leave the device and the
+    # update samples its minibatches in-graph — no per-step D2H/H2D
+    # transfers of the host numpy buffer.
     if venv.obs_mode == "rgb":
         from ..common import DeviceImageReplayBuffer
 

@@ -16,8 +16,6 @@ import json
 import os
 from typing import Any, Dict, List, Optional
 
-import yaml
-
 from .spec import (
     EnvSpec,
     LossSpec,
@@ -76,6 +74,8 @@ _DEFAULT_TREE: Dict[str, Any] = {
 
 def load_scene_dict(path: str) -> Dict[str, Any]:
     """Load a task YAML file into the (unresolved) config dict."""
+    import yaml  # only reference-schema YAML needs it; shipped specs are JSON
+
     with open(path) as f:
         raw = yaml.safe_load(f)
     return _merge_dict(_DEFAULT_TREE, raw or {})
@@ -144,8 +144,8 @@ def scene_from_dict(cfg: Dict[str, Any]) -> SceneSpec:
         if fld in sim_d:
             v = sim_d[fld]
             sim_kw[fld] = tuple(v) if isinstance(v, (list, tuple)) else v
-    # reference requires float64; our default is TPU-native float32 unless the
-    # task YAML explicitly asks otherwise.
+    # reference requires float64; our default is float32 unless the task
+    # YAML explicitly asks otherwise.
     sim_kw.setdefault("dtype", "float32")
 
     ren_d = {k: _ev(v) for k, v in (cfg.get("RENDERER") or {}).items()}

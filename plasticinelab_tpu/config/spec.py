@@ -2,7 +2,7 @@
 
 These mirror the reference's yacs config tree (plb/config/default_config.py)
 but are immutable and hashable so a SceneSpec can parameterize jit-compiled
-physics as a static argument — the TPU analogue of Taichi's per-scene kernel
+physics as a static argument — the JAX analogue of Taichi's per-scene kernel
 specialization (ti.static over primitive lists, plb/engine/mpm_simulator.py:
 196-198).
 
@@ -24,7 +24,7 @@ class SimulatorSpec:
     dim: int = 3
     quality: float = 1.0
     yield_stress: float = 50.0
-    dtype: str = "float32"  # reference asserts float64; f32 is TPU-native
+    dtype: str = "float32"  # reference asserts float64; f32 is the default
     max_steps: int = 1024   # API parity only — no trajectory buffer exists here
     n_particles: int = 9000
     E: float = 5e3
@@ -45,17 +45,15 @@ class SimulatorSpec:
     # "substep"/"both"; trajectory-level rollouts (sim.rollout_value_and_grad,
     # bench.py, parallel.mesh) apply an outer per-env-step checkpoint for
     # "env_step"/"both". "none" checkpoints nothing: every substep's XLA
-    # residuals are stored (~0.4 KB/particle/substep measured-order at 10k
-    # particles — a single-env 950-substep trajectory is ~4 GB and runs
-    # ~19% faster than any recomputing policy: 1065 vs 945 substeps/s on
-    # the v5e). "auto" (the default) picks the cheapest policy that fits
-    # the HBM budget for the rollout's (horizon, batch) at trace time —
-    # see mpm.resolve_remat.
+    # residuals are stored, and nothing is recomputed. "auto" (the default)
+    # picks the cheapest policy that fits the device's memory for the
+    # rollout's (horizon, batch) at trace time — see mpm.resolve_remat.
     remat: str = "auto"
-    # Transfer backend selection. "auto" uses the Pallas local-window rows
-    # path on TPU where eligible; "dense" forces the chunked dense
-    # Khatri-Rao path — required under vmap (batched envs), whose batching
-    # the Pallas kernels don't support.
+    # Particle<->grid transfer. "auto" uses the windowed transfer
+    # (engine/local_transfer.py) where the scene is big enough, with a
+    # per-substep dense fallback; "dense" always uses the chunked dense
+    # Khatri-Rao transfer (engine/transfer.py) — what batched (vmapped)
+    # envs use, since under vmap the fallback's lax.cond runs both arms.
     transfer: str = "auto"
 
     # ---- derived (reference mpm_simulator.py:15-34) ----

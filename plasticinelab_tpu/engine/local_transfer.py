@@ -1,15 +1,14 @@
-"""Locality-chunked particle<->grid transfer — the sparse MPM path on TPU.
+"""Locality-chunked particle<->grid transfer — the windowed MPM path.
 
 The dense Khatri-Rao transfer (engine/transfer.py) contracts every particle
-against the full D^3 crop: ~2*n*D^3 FLOPs per channel, which at Move-v1's
-D=40 crop is ~28 GFLOP per substep — the forward alone would eat the whole
-<1 s trajectory-gradient budget (BASELINE.md north star). But each particle's
-quadratic B-spline support is only 3^3 cells; this module recovers that
-sparsity in a static-shape, MXU-friendly way:
+against the full D^3 crop: ~2*n*D^3 FLOPs per channel, ~28 GFLOP per
+substep at Move-v1's D=40 crop. But each particle's quadratic B-spline
+support is only 3^3 cells; this module recovers that sparsity with static
+shapes:
 
   1. Once per env step, particles are sorted by their x-major raster cell
-     index (a multi-operand bitonic `lax.sort` — no TPU gathers; gradients
-     route through inverse sorts, see `sort_rows`/`unsort_rows`).
+     index (a multi-operand `lax.sort`; gradients route through inverse
+     sorts, see `sort_rows`/`unsort_rows`).
   2. Each chunk of P consecutive sorted particles is contracted against a
      per-chunk window of the crop of static shape (Lx, Ly, D): the x-sort
      bounds a chunk's x-extent to a couple of cells, Ly is sized from the
@@ -29,8 +28,6 @@ against tests/oracle_mpm.py through mpm.substep).
 """
 from __future__ import annotations
 
-import math
-from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -38,10 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config.spec import SceneSpec
-
-# TPU matmuls default to one bf16 pass; HIGH = 3-pass bf16 ~ f32 accuracy
-# (same choice as the dense path, engine/transfer.py).
-_einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGH)
+from .transfer import _einsum  # the transfers' one matmul precision
 
 __all__ = [
     "LocalPlan", "plan_for", "enabled", "sort_keys", "sort_rows",
@@ -65,8 +59,11 @@ class LocalPlan(NamedTuple):
 def plan_for(scene: SceneSpec, D: int) -> LocalPlan:
     """Default plan: window only along x (the sorted axis), y and z dense.
     The x-sort bounds chunk x-extents to a couple of cells, so Lx = 8 holds
-    a wide margin; full-depth y/z keep the fallback check x-only and let the
-    tile scatter/gather run as one-hot placement matmuls."""
+    a wide margin; full-depth y/z keep the fallback check x-only.
+
+    P in [128, 512] in multiples of 128 and Lx = 8 were chosen before the
+    H100 port and are not yet tuned on it; they change how the work is
+    blocked, not the results."""
     n = scene.simulator.n_particles
     P = max(128, min(512, ((n + 127) // 128) * 128))
     return LocalPlan(P=P, Lx=8, Ly=D)
@@ -74,12 +71,15 @@ def plan_for(scene: SceneSpec, D: int) -> LocalPlan:
 
 def enabled(scene: SceneSpec, D: int) -> bool:
     """Static gate: windows only pay off when the crop is big enough for the
-    Lx/D saving to beat the chunking overhead."""
-    return D >= 32 and scene.simulator.n_particles >= 64
+    Lx/D saving to beat the chunking overhead. SimulatorSpec.transfer ==
+    "dense" turns them off (batched callers: under vmap the dense fallback's
+    `lax.cond` becomes a select that runs both transfers)."""
+    return (scene.simulator.transfer != "dense" and D >= 32
+            and scene.simulator.n_particles >= 64)
 
 
 # ---------------------------------------------------------------------------
-# sorting (differentiable permutation via paired sorts — no TPU gathers)
+# sorting (differentiable permutation via paired sorts)
 # ---------------------------------------------------------------------------
 
 def sort_keys(scene: SceneSpec, x) -> jnp.ndarray:
@@ -93,9 +93,8 @@ def sort_keys(scene: SceneSpec, x) -> jnp.ndarray:
 
 
 def _sort_tree_by_key(key, tree):
-    """Sort the rows of every (n, ...) leaf by integer `key` (stable).
-    Implemented as one multi-operand lax.sort — vectorized on TPU, unlike a
-    row gather."""
+    """Sort the rows of every (n, ...) leaf by integer `key` (stable), as
+    one multi-operand lax.sort."""
     leaves, treedef = jax.tree.flatten(tree)
     cols, counts = [], []
     for leaf in leaves:
@@ -144,198 +143,6 @@ def sort_rows(key, tree):
 def unsort_rows(order, rank, tree):
     """Invert sort_rows: rows back to their original positions."""
     return _permute(order, rank, tree)
-
-
-# ---- rows-layout (channel-major) variants: state as one (R, N) array ----
-
-def sort_keys_cols(scene: SceneSpec, x3, n: int) -> jnp.ndarray:
-    """Raster cell key from x rows (3, N); padded columns (>= n) get the max
-    key so they stay at the end of the sorted order."""
-    sim = scene.simulator
-    G = sim.n_grid
-    base = jnp.clip(
-        jnp.floor(x3 * sim.inv_dx - 0.5).astype(jnp.int32), 0, G - 1
-    )
-    key = (base[0] * G + base[1]) * G + base[2]
-    N = x3.shape[1]
-    if N > n:
-        pad = jnp.arange(N, dtype=jnp.int32) >= n
-        key = jnp.where(pad, G * G * G, key)
-    return key
-
-
-def _sort_cols_by_key(key, arr):
-    """Sort the columns of (R, N) `arr` by integer `key` (stable), one
-    multi-operand lax.sort."""
-    R = arr.shape[0]
-    out = jax.lax.sort((key, *[arr[i] for i in range(R)]), dimension=0,
-                       is_stable=True, num_keys=1)
-    return jnp.stack(out[1:], axis=0)
-
-
-@jax.custom_vjp
-def _permute_cols(fwd_key, bwd_key, arr):
-    return _sort_cols_by_key(fwd_key, arr)
-
-
-def _permute_cols_fwd(fwd_key, bwd_key, arr):
-    return _sort_cols_by_key(fwd_key, arr), (fwd_key, bwd_key)
-
-
-def _permute_cols_bwd(res, ct):
-    fwd_key, bwd_key = res
-    zf = np.zeros(fwd_key.shape, jax.dtypes.float0)
-    zb = np.zeros(bwd_key.shape, jax.dtypes.float0)
-    return zf, zb, _sort_cols_by_key(bwd_key, ct)
-
-
-_permute_cols.defvjp(_permute_cols_fwd, _permute_cols_bwd)
-
-
-def sort_cols(key, arr):
-    """Sort columns of (R, N) by key. Returns (sorted, order, rank)."""
-    N = key.shape[0]
-    iota = jnp.arange(N, dtype=jnp.int32)
-    _, order = jax.lax.sort((key, iota), dimension=0, is_stable=True,
-                            num_keys=1)
-    _, rank = jax.lax.sort((order, iota), dimension=0, is_stable=True,
-                           num_keys=1)
-    return _permute_cols(key, order, arr), order, rank
-
-
-def unsort_cols(order, rank, arr):
-    return _permute_cols(order, rank, arr)
-
-
-def chunk_offsets_cols(scene: SceneSpec, plan: LocalPlan, x3, off, D: int,
-                       n: int, margin: int = 0) -> ChunkCtx:
-    """chunk_offsets from x rows (3, N), N = NC * P, pads replicating real
-    columns. Column-wise min/max keeps every reduce on the fat minor dim.
-    `margin` tightens the ok check (extent <= Lx - 3 - margin) and shifts
-    the window origin DOWN by margin//2 cells, so offsets computed once per
-    env step stay exact while particles drift up to margin//2 cells in
-    EITHER direction (they move << 1 cell per env step at sane velocities;
-    the hoist saves the per-substep min/max planning in fwd AND its remat
-    recompute in bwd)."""
-    sim = scene.simulator
-    P = plan.P
-    base = jnp.floor(x3 * sim.inv_dx - 0.5).astype(jnp.int32)  # (3, N)
-    bases = base.reshape(3, -1, P)
-    mn = jnp.min(bases, axis=2).T  # (NC, 3)
-    mx = jnp.max(bases, axis=2).T
-    ext = mx - mn
-    ok = jnp.all(ext[:, 0] <= plan.Lx - 3 - margin)
-    if plan.Ly < D:
-        ok = jnp.logical_and(ok, jnp.all(ext[:, 1] <= plan.Ly - 3 - margin))
-    lims = jnp.asarray([D - plan.Lx, D - plan.Ly, 0], jnp.int32)
-    offs = off[None, :] + jnp.clip(
-        mn - margin // 2 - off[None, :], 0, lims[None, :])
-    return ChunkCtx(offs=offs, ok=ok)
-
-
-def crop_offset_cols(scene: SceneSpec, x3, D: int) -> jnp.ndarray:
-    """crop_offset from x rows (3, N)."""
-    sim = scene.simulator
-    base = jnp.floor(x3 * sim.inv_dx - 0.5).astype(jnp.int32)
-    center = (jnp.min(base, axis=1) + jnp.max(base, axis=1)) // 2
-    return jnp.clip(center - D // 2, 0, sim.n_grid - D)
-
-
-# ---- FLAT batched layout: all B envs' columns concatenated, env b owning
-# columns [b*N, (b+1)*N). One wide lax.sort with env-major keys replaces a
-# vmapped sort (whose XLA:TPU compile does not terminate in practice);
-# stability keeps env blocks contiguous and pads at each block's end. ----
-
-def sort_keys_cols_flat(scene: SceneSpec, x3, B: int, N: int,
-                        n: int) -> jnp.ndarray:
-    """Env-major raster keys on flat x rows (3, B*N): key =
-    env * (G^3 + 1) + cellkey, pads (slot >= n) get cellkey G^3. Requires
-    B * (G^3 + 1) < 2^31 (B <= 8191 at G = 64)."""
-    sim = scene.simulator
-    G = sim.n_grid
-    base = jnp.clip(
-        jnp.floor(x3 * sim.inv_dx - 0.5).astype(jnp.int32), 0, G - 1)
-    key = (base[0] * G + base[1]) * G + base[2]
-    idx = jax.lax.iota(jnp.int32, B * N)
-    pad = (idx % N) >= n
-    key = jnp.where(pad, G * G * G, key)
-    return (idx // N) * (G * G * G + 1) + key
-
-
-def crop_offset_cols_flat(scene: SceneSpec, x3, D: int, B: int):
-    """(B, 3) per-env crop offsets from flat x rows (3, B*N) (pads
-    replicate real columns, so per-env min/max are unaffected)."""
-    sim = scene.simulator
-    base = jnp.floor(x3 * sim.inv_dx - 0.5).astype(jnp.int32)
-    bb = base.reshape(3, B, -1)
-    center = (jnp.min(bb, axis=2) + jnp.max(bb, axis=2)) // 2  # (3, B)
-    return jnp.clip(center - D // 2, 0, sim.n_grid - D).T
-
-
-@jax.custom_vjp
-def _permute_cols_gather(order, rank, arr):
-    return jnp.take(arr, order, axis=1)
-
-
-def _permute_cols_gather_fwd(order, rank, arr):
-    return jnp.take(arr, order, axis=1), (order, rank)
-
-
-def _permute_cols_gather_bwd(res, ct):
-    order, rank = res
-    zo = np.zeros(order.shape, jax.dtypes.float0)
-    zr = np.zeros(rank.shape, jax.dtypes.float0)
-    return zo, zr, jnp.take(ct, rank, axis=1)
-
-
-_permute_cols_gather.defvjp(_permute_cols_gather_fwd, _permute_cols_gather_bwd)
-
-
-def sort_cols_gather(key, arr):
-    """sort_cols via argsort + ONE column gather instead of a multi-operand
-    lax.sort. On XLA:TPU, a variadic sort whose operands are row slices of a
-    2-D array has pathological compile time at large widths (measured: 24
-    slices at W = 40960 never finish; the same sort on standalone operands
-    compiles in 14 s, argsort+gather in 8 s, and the gather runs in ~0.07 ms)
-    — so the flat batched layout uses this form. Gradients flow through the
-    permutation exactly (gather by the inverse permutation)."""
-    W = key.shape[0]
-    iota = jnp.arange(W, dtype=jnp.int32)
-    _, order = jax.lax.sort((key, iota), dimension=0, is_stable=True,
-                            num_keys=1)
-    _, rank = jax.lax.sort((order, iota), dimension=0, is_stable=True,
-                           num_keys=1)
-    return _permute_cols_gather(order, rank, arr), order, rank
-
-
-def unsort_cols_gather(order, rank, arr):
-    """Invert sort_cols_gather (columns back to original positions)."""
-    return _permute_cols_gather(rank, order, arr)
-
-
-def chunk_offsets_cols_flat(scene: SceneSpec, plan: LocalPlan, x3, off_b,
-                            D: int, B: int, margin: int = 0):
-    """Per-chunk window origins on the flat layout: x3 (3, B*N) sorted,
-    off_b (B, 3). Returns ChunkCtx with offs (B, NC, 3) and ok (B,).
-    `margin` as in chunk_offsets_cols (tighter ok + margin//2 down-shift
-    so once-per-env-step offsets tolerate drift both ways)."""
-    sim = scene.simulator
-    P = plan.P
-    base = jnp.floor(x3 * sim.inv_dx - 0.5).astype(jnp.int32)
-    bases = base.reshape(3, -1, P)              # (3, B*NC, P)
-    mn = jnp.min(bases, axis=2).T               # (B*NC, 3)
-    mx = jnp.max(bases, axis=2).T
-    NC = mn.shape[0] // B
-    ext = (mx - mn).reshape(B, NC, 3)
-    ok = jnp.all(ext[:, :, 0] <= plan.Lx - 3 - margin, axis=1)
-    if plan.Ly < D:
-        ok = jnp.logical_and(
-            ok, jnp.all(ext[:, :, 1] <= plan.Ly - 3 - margin, axis=1))
-    lims = jnp.asarray([D - plan.Lx, D - plan.Ly, 0], jnp.int32)
-    mn = mn.reshape(B, NC, 3)
-    offs = off_b[:, None, :] + jnp.clip(
-        mn - margin // 2 - off_b[:, None, :], 0, lims[None, None, :])
-    return ChunkCtx(offs=offs, ok=ok)
 
 
 # ---------------------------------------------------------------------------

@@ -6,29 +6,27 @@ hand-written recompute-then-grad backward (substep_grad, 260-278) is replaced
 by jax.checkpoint over the per-env-step substep scan, which recomputes the
 same intermediates.
 
-TPU design:
-- Particle<->grid transfers use the dense separable Khatri-Rao matmul
-  formulation on a cropped grid (engine/transfer.py) — MXU matmuls instead of
-  random-access scatter/gather, deterministic and differentiable (and ~10x
-  faster than XLA scatter on TPU).
-- All particle ops are elementwise over the particle batch (VPU); no
-  data-dependent control flow — jnp.where everywhere.
+Design:
+- Particle<->grid transfers use the separable Khatri-Rao matmul formulation
+  on a cropped grid (engine/transfer.py, engine/local_transfer.py) instead
+  of the reference's atomic scatter/gather: deterministic and
+  differentiable, with matmul VJPs.
+- All particle ops are elementwise over the particle batch; the only
+  data-dependent control flow is the windowed transfer's dense fallback
+  (`lax.cond` in `substep`).
 """
 from __future__ import annotations
 
-from functools import partial
-from typing import Tuple
+import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
 
-
-# TPU matmuls default to one bf16 pass; physics needs full f32
-# accumulate-and-multiply (Precision.HIGHEST = 6-pass on TPU).
+# Physics needs full f32 multiply-accumulate in the small per-particle 3x3
+# products: HIGHEST keeps XLA from running them in TF32 on the GPU.
 from functools import partial as _partial
 _einsum = _partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
-
-import numpy as np
 
 from ..config.spec import SceneSpec
 from . import local_transfer
@@ -42,8 +40,9 @@ from .transfer import (
 )
 
 __all__ = [
-    "substep", "env_step", "env_step_batched", "compute_grid_m",
-    "make_controls", "von_mises_project", "stress_affine", "grid_op",
+    "substep", "env_step", "compute_grid_m", "make_controls",
+    "von_mises_project", "stress_affine", "grid_op", "resolve_remat",
+    "device_memory_bytes",
 ]
 
 
@@ -68,48 +67,6 @@ def von_mises_project(F_tmp, U, sig, V, yield_stress, mu):
 
 
 def stress_affine(scene: SceneSpec, mats: Materials, C, F):
-    """F-update + plasticity + stress + APIC affine. Dispatches to the fused
-    Pallas kernel on TPU (f32, scalar materials); jnp otherwise. The Pallas
-    path keeps the jnp VJP (with the damped SVD backward)."""
-    use_pallas = (
-        jax.default_backend() == "tpu"
-        and F.dtype == jnp.float32
-        and not jax.config.jax_enable_x64   # Mosaic rejects i64 under x64
-        and mats.mu.ndim == 0
-    )
-    if use_pallas:
-        return _stress_affine_pallas_vjp(scene, mats)(C, F)
-    return stress_affine_jnp(scene, mats, C, F)
-
-
-_PALLAS_CACHE = {}
-
-
-def _stress_affine_pallas_vjp(scene: SceneSpec, mats: Materials):
-    key = (scene.simulator, float(mats.mu), float(mats.lam),
-           float(mats.yield_stress))
-    if key in _PALLAS_CACHE:
-        return _PALLAS_CACHE[key]
-    from .pallas_stress import stress_affine_pallas, stress_affine_pallas_bwd
-
-    @jax.custom_vjp
-    def fn(C, F):
-        return stress_affine_pallas(scene, mats, C, F)
-
-    def fwd(C, F):
-        return stress_affine_pallas(scene, mats, C, F), (C, F)
-
-    def bwd(res, ct):
-        C, F = res
-        gNewF, gAffine = ct
-        return stress_affine_pallas_bwd(scene, mats, C, F, gNewF, gAffine)
-
-    fn.defvjp(fwd, bwd)
-    _PALLAS_CACHE[key] = fn
-    return fn
-
-
-def stress_affine_jnp(scene: SceneSpec, mats: Materials, C, F):
     """F-update + plasticity + Cauchy-like stress + APIC affine matrix
     (reference p2g :158-174). Returns (new_F, affine)."""
     sim = scene.simulator
@@ -197,8 +154,7 @@ def grid_op_core(scene: SceneSpec, g4c, coords, pose_f, pose_f1, softness):
     coords: (ci, cj, ck) int32 GLOBAL cell index arrays of the same shape;
     pose_f/pose_f1: (pos, rot, gap) where pos/rot/gap are indexable per
     primitive (arrays or tuples of scalars). Returns the 3 velocity
-    components as a list. Shared by the XLA path (flat (M,) arrays) and the
-    Pallas grid_op kernels ((Tx, Ly*D) x-tile arrays)."""
+    components as a list."""
     from . import primitives_cm as pcm
 
     sim = scene.simulator
@@ -259,8 +215,8 @@ def grid_op_cm(scene: SceneSpec, grid4, pose_f, pose_f1, softness, D: int,
                off):
     """Channel-major grid_op: grid4 (4, M) rows = momentum x/y/z + mass on
     the D^3 crop -> (3, M) velocities. Same math as grid_op (reference
-    grid_op :189-221) re-expressed on per-component (M,) arrays so every op
-    is a full-width VPU pass (the (M, 3) form forces 3-wide minor dims)."""
+    grid_op :189-221) re-expressed on per-component (M,) arrays instead of
+    (M, 3) vectors (tests/test_primitives_cm.py holds the two equal)."""
     ii = jax.lax.broadcasted_iota(jnp.int32, (D, D, D), 0).reshape(-1) + off[0]
     jj = jax.lax.broadcasted_iota(jnp.int32, (D, D, D), 1).reshape(-1) + off[1]
     kk = jax.lax.broadcasted_iota(jnp.int32, (D, D, D), 2).reshape(-1) + off[2]
@@ -286,8 +242,6 @@ def substep(scene: SceneSpec, mats: Materials, state: SimState, ctrl: Controls,
         # local_transfer.py); when material spreads past the windows the
         # substep falls back to the dense crop transfer — same math, more
         # FLOPs — so the fast path is never a correctness assumption.
-        # (On TPU/f32 env_step routes through substep_rows / Pallas kernels
-        # instead of this jnp path.)
         plan = local_transfer.plan_for(scene, D)
         off = crop_offset(scene, state.x, D)
         ctx = local_transfer.chunk_offsets(scene, plan, state.x, off, D)
@@ -313,24 +267,9 @@ def substep(scene: SceneSpec, mats: Materials, state: SimState, ctrl: Controls,
         grid_v_in, grid_m = p2g_dense(scene, aw, state.v, affine, D, kr)
 
     # forward kinematics: pose at f -> f+1 (runs between p2g and grid_op)
-    new_pos, new_rot, new_gap = [], [], []
-    for i, p in enumerate(scene.primitives):
-        np_, nr_, ng_ = prim.forward_kinematics(
-            p, state.prim_pos[i], state.prim_rot[i], state.prim_gap[i],
-            ctrl.v[i], ctrl.w[i], ctrl.gap_vel[i],
-        )
-        new_pos.append(np_)
-        new_rot.append(nr_)
-        new_gap.append(jnp.reshape(ng_, ()))
-    if scene.primitives:
-        prim_pos1 = jnp.stack(new_pos)
-        prim_rot1 = jnp.stack(new_rot)
-        prim_gap1 = jnp.stack(new_gap)
-    else:
-        prim_pos1, prim_rot1, prim_gap1 = state.prim_pos, state.prim_rot, state.prim_gap
-
     pose_f = (state.prim_pos, state.prim_rot, state.prim_gap)
-    pose_f1 = (prim_pos1, prim_rot1, prim_gap1)
+    pose_f1 = _fk_step(scene, pose_f, ctrl)
+    prim_pos1, prim_rot1, prim_gap1 = pose_f1
 
     grid_v_out = grid_op(
         scene, grid_v_in, grid_m, pose_f, pose_f1, softness, D, off,
@@ -357,38 +296,43 @@ def substep(scene: SceneSpec, mats: Materials, state: SimState, ctrl: Controls,
     )
 
 
-# ---------------------------------------------------------------------------
-# rows-layout fast path (TPU): particle state as one (24, N) f32 array,
-# rows = x(0:3), v(3:6), C(6:15), F(15:24). Channel-major throughout — on
-# TPU every (n, 3)-shaped op costs a pathological 3-wide-minor relayout, so
-# the whole substep scan runs in rows layout and SimState is only
-# (un)packed at env-step boundaries.
-# ---------------------------------------------------------------------------
-
-_STRESS_BLOCK = 2048  # pallas_stress block granularity (16 sublanes x 128)
-
-# Tests: run the rows/Pallas path in interpret mode on CPU (toggled by
-# tests, never set in production — Pallas interpret is orders of magnitude
-# slower but numerically exact vs the TPU kernels' bf16x3 dots).
-ROWS_INTERPRET = False
-
-
-# remat="auto" resolution constants (measured-order, f32, 24-row state):
-# XLA residuals per particle-substep with NO checkpoint (~0.4 KB at 10k
-# particles — a 950-substep Move-v1 trajectory ran in 16 GB), and the
-# 24-float carry per particle-substep that "substep" remat stores.
-_REMAT_RESID_BYTES = 400
-_REMAT_CARRY_BYTES = 96
-_REMAT_RESID_BUDGET = 10e9   # leave headroom on a 16 GB chip
-_REMAT_CARRY_BUDGET = 13e9
+# remat="auto" resolution constants, f32, from compiled.memory_analysis()
+# temp bytes of the Move-v1 rollout gradient at 600 and 2400 particles
+# (slope and intercept of the per-substep growth, XLA CPU backend): with NO
+# checkpoint each substep stores ~162 KB per particle (the Khatri-Rao
+# factors of both arms of the windowed transfer's dense-fallback cond
+# dominate) plus ~1.5 KB per crop cell; "substep" remat stores ~1 KB per
+# particle-substep.
+_REMAT_RESID_BYTES = 162_000
+_REMAT_GRID_BYTES = 1_520
+_REMAT_CARRY_BYTES = 1_100
+# Shares of the device's memory limit that stored residuals / carries may
+# take; the rest is headroom for one substep's live intermediates.
+_REMAT_RESID_SHARE = 0.6
+_REMAT_CARRY_SHARE = 0.8
 
 
-def resolve_remat(scene: SceneSpec, horizon: int, batch: int = 1) -> SceneSpec:
+def device_memory_bytes(device=None) -> int:
+    """Memory the allocator may hand out on `device` (default: the first
+    device): `memory_stats()["bytes_limit"]` on an accelerator, physical RAM
+    on the CPU backend, which reports no stats. Any other device without a
+    limit is an error — remat budgets are never guessed."""
+    device = device or jax.devices()[0]
+    stats = device.memory_stats()
+    if stats and "bytes_limit" in stats:
+        return int(stats["bytes_limit"])
+    if device.platform == "cpu":
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    raise ValueError(f"device {device} reports no memory limit")
+
+
+def resolve_remat(scene: SceneSpec, horizon: int, budget_bytes: int,
+                  batch: int = 1) -> SceneSpec:
     """Resolve SimulatorSpec.remat == "auto" to a concrete policy for a
-    rollout of `horizon` env steps over `batch` envs, cheapest-first:
+    rollout of `horizon` env steps over `batch` envs on a device with
+    `budget_bytes` of memory (device_memory_bytes), cheapest-first:
 
-    - "none":     store all substep residuals (no recompute; fastest —
-                  1065 vs 945 substeps/s measured single-env on the v5e)
+    - "none":     store all substep residuals (no recompute)
     - "substep":  store per-substep carries, recompute substep internals
     - "env_step": store per-env-step carries, recompute each env step once
                   (residuals live for one env step x batch at a time)
@@ -396,48 +340,25 @@ def resolve_remat(scene: SceneSpec, horizon: int, batch: int = 1) -> SceneSpec:
 
     Called at trace time (horizon/batch are Python ints); rollouts that
     already carry a concrete policy pass through unchanged."""
-    import dataclasses
-
     sim = scene.simulator
     if sim.remat != "auto":
         return scene
+    resid_budget = _REMAT_RESID_SHARE * budget_bytes
+    carry_budget = _REMAT_CARRY_SHARE * budget_bytes
     S = horizon * sim.substeps * batch
     n = sim.n_particles
-    # Grid-sized residuals are NOT per-particle: each stored substep keeps
-    # transfer grids plus grid_op VJP saves that grow with primitive count
-    # (per-prim collision weights). Measured on the v5e (15.75 GB HBM):
-    # Move-v1 (k=2, 10k particles, 950 substeps) fits store-all; Rope-v1
-    # (k=3, same size) demands 19.9 GB under the per-particle-only estimate.
-    grid_resid = sim.n_grid ** 3 * 4 * (2 + 2 * len(scene.primitives))
-    per_substep = n * _REMAT_RESID_BYTES + grid_resid
-    if S * per_substep < _REMAT_RESID_BUDGET:
+    per_substep = (n * _REMAT_RESID_BYTES
+                   + crop_size(scene) ** 3 * _REMAT_GRID_BYTES)
+    if S * per_substep < resid_budget:
         policy = "none"
-    elif S * n * _REMAT_CARRY_BYTES < _REMAT_CARRY_BUDGET:
+    elif S * n * _REMAT_CARRY_BYTES < carry_budget:
         policy = "substep"
-    elif batch * sim.substeps * per_substep < _REMAT_RESID_BUDGET:
+    elif batch * sim.substeps * per_substep < resid_budget:
         policy = "env_step"
     else:
         policy = "both"
     return dataclasses.replace(
         scene, simulator=dataclasses.replace(sim, remat=policy))
-
-
-def rows_pad(scene: SceneSpec, n: int) -> int:
-    plan = local_transfer.plan_for(scene, crop_size(scene))
-    m = int(np.lcm(plan.P, _STRESS_BLOCK))
-    return ((n + m - 1) // m) * m
-
-
-def use_rows_path(scene: SceneSpec, dtype) -> bool:
-    if scene.simulator.transfer == "dense":
-        return False
-    if not local_transfer.enabled(scene, crop_size(scene)):
-        return False
-    if dtype != jnp.float32:
-        return False
-    if ROWS_INTERPRET:
-        return True
-    return jax.default_backend() == "tpu" and not jax.config.jax_enable_x64
 
 
 def _fk_step(scene: SceneSpec, poses, ctrl):
@@ -455,383 +376,6 @@ def _fk_step(scene: SceneSpec, poses, ctrl):
     if not scene.primitives:
         return poses
     return (jnp.stack(new_pos), jnp.stack(new_rot), jnp.stack(new_gap))
-
-
-def substep_rows(scene: SceneSpec, mats: Materials, rows24, poses, ctrl,
-                 softness, n: int, off=None, offs=None):
-    """One substep on rows-layout state, Pallas transfers only (the dense
-    fallback is selected once per env step, see _env_step_rows). rows24
-    (24, N) f32 (N = padded, pads carry mask 0). Returns (rows24', poses').
-
-    off (3,) / offs (NC, 3): crop and chunk-window origins. When given
-    (the env-step scan hoists them — the entry check's margin-2 windows
-    stay exact for the whole step's drift) the per-substep min/max
-    planning is skipped in fwd and in its remat recompute."""
-    from . import pallas_local
-    from .pallas_stress import stress_affine_rows
-
-    D = crop_size(scene)
-    plan = local_transfer.plan_for(scene, D)
-    N = rows24.shape[1]
-
-    x3 = rows24[0:3]
-    if off is None:
-        # pads replicate real positions, so they never widen the crop
-        off = local_transfer.crop_offset_cols(scene, x3, D)
-    if offs is None:
-        offs = local_transfer.chunk_offsets_cols(
-            scene, plan, x3, off, D, n).offs
-
-    outCF = stress_affine_rows(scene, mats,
-                               interpret=ROWS_INTERPRET)(rows24[6:24])
-    newF9, aff9 = outCF[0:9], outCF[9:18]
-
-    maskr = (jnp.arange(N, dtype=jnp.int32)[None, :] < n).astype(rows24.dtype)
-    rows16 = jnp.concatenate([x3, rows24[3:6], aff9, maskr], axis=0)
-
-    _, _, p2g_rows, g2p_rows_fn = pallas_local.transfer_fns(
-        scene, plan, D, interpret=ROWS_INTERPRET)
-    grid4 = p2g_rows(rows16, offs, off)
-
-    poses1 = _fk_step(scene, poses, ctrl)
-    if scene.primitives:
-        from . import pallas_gridop
-
-        pgo = pallas_gridop.grid_op_fns(scene, D, interpret=ROWS_INTERPRET)
-        pf = jnp.concatenate(
-            [poses[0], poses[1], poses1[0], poses1[1]], axis=1
-        ).astype(jnp.float32)
-        gap2 = jnp.stack([poses[2], poses1[2]], axis=1).astype(jnp.float32)
-        gv3 = pgo(grid4, pf, gap2, softness, off)
-    else:
-        gv3 = grid_op_cm(scene, grid4, poses, poses1, softness, D, off)
-
-    rows4 = jnp.concatenate([x3, maskr], axis=0)
-    out15 = g2p_rows_fn(rows4, gv3.reshape(3, D ** 3), offs, off)
-
-    new_rows = jnp.concatenate(
-        [out15[12:15], out15[0:3], out15[3:12], newF9], axis=0)
-    return new_rows, poses1
-
-
-def _env_step_rows(scene: SceneSpec, mats: Materials, state: SimState, ctrl,
-                   softness, want_grid_m: bool = False,
-                   fallback: bool = True):
-    """env_step on the rows layout: pack, sort, check windows ONCE, then
-    either the Pallas substep scan or (rarely) the jnp dense scan.
-
-    fallback=False skips the lax.cond dense fallback entirely — required
-    for vmapped (batched) execution, where cond lowers to a select that
-    would run BOTH branches for the whole batch. Without the fallback a
-    violated chunk window only clips spline weights into the window edge
-    (bounded accuracy loss on states already headed for the NaN guard).
-
-    With want_grid_m, also returns (grid_m_crop (D^3,), off (3,)) of the
-    FINAL state — computed by the mass-only Pallas kernel on the still-
-    sorted rows (the entry window check's 2-cell margin covers the whole
-    env step's drift), replacing the dense KR grid-mass transfer the loss
-    would otherwise pay per env step."""
-    sim = scene.simulator
-    D = crop_size(scene)
-    plan = local_transfer.plan_for(scene, D)
-    n = state.x.shape[0]
-    N = rows_pad(scene, n)
-    f32 = jnp.float32
-
-    rows = jnp.concatenate(
-        [state.x.T, state.v.T, state.C.reshape(n, 9).T,
-         state.F.reshape(n, 9).T], axis=0,
-    ).astype(f32)
-    key = local_transfer.sort_keys_cols(scene, rows[0:3], n)
-    rows, order, rank = local_transfer.sort_cols(key, rows)
-
-    # One window check per env step with a 2-cell drift margin (particles
-    # move << 1 cell per env step; the margin covers pathological spikes,
-    # and a violated margin only ever costs accuracy already headed for the
-    # NaN guard, never a crash).
-    off0 = local_transfer.crop_offset_cols(scene, rows[0:3], D)
-    ctx0 = local_transfer.chunk_offsets_cols(
-        scene, plan, _pad_rows_cols(rows, n, N)[0:3], off0, D, n, margin=2
-    )
-    ok = ctx0.ok
-
-    poses = (state.prim_pos.astype(f32), state.prim_rot.astype(f32),
-             state.prim_gap.astype(f32))
-    maskr = (jnp.arange(N, dtype=jnp.int32)[None, :] < n).astype(f32)
-
-    def _mass_dense(x_final):
-        aw = axis_weights(scene, x_final, D, off=off0)
-        zeros_v = jnp.zeros((n, 3), f32)
-        zeros_aff = jnp.zeros((n, 3, 3), f32)
-        return p2g_dense(scene, aw, zeros_v, zeros_aff, D)[1]
-
-    def _fast(rows, poses):
-        rows = _pad_rows_cols(rows, n, N)
-
-        def body(carry, _):
-            r, p = carry
-            # entry windows (margin-2, origin down-shifted 1) stay exact
-            # for the whole env step's drift — skip per-substep planning
-            return substep_rows(scene, mats, r, p, ctrl, softness, n,
-                                off=off0, offs=ctx0.offs), None
-
-        if sim.remat in ("substep", "both"):
-            body = jax.checkpoint(body)
-        (rows, poses), _ = jax.lax.scan(
-            body, (rows, poses), None, length=sim.substeps)
-        if want_grid_m:
-            from . import pallas_local
-
-            mass_rows = pallas_local.mass_fns(scene, plan, D,
-                                              interpret=ROWS_INTERPRET)
-            rows4m = jnp.concatenate([rows[0:3], maskr], axis=0)
-            gm = mass_rows(rows4m, ctx0.offs, off0)
-        else:
-            gm = jnp.zeros((0,), f32)
-        return rows[:, :n], poses, gm
-
-    def _slow(rows, poses):
-        # dense jnp scan on (n, 3) state — correctness fallback, rare
-        st = SimState(
-            x=rows[0:3].T, v=rows[3:6].T,
-            C=rows[6:15].T.reshape(n, 3, 3), F=rows[15:24].T.reshape(n, 3, 3),
-            prim_pos=poses[0], prim_rot=poses[1], prim_gap=poses[2],
-        )
-
-        @jax.checkpoint
-        def body(s, _):
-            return _substep_dense(scene, mats, s, ctrl, softness), None
-
-        st, _ = jax.lax.scan(body, st, None, length=sim.substeps)
-        out = jnp.concatenate(
-            [st.x.T, st.v.T, st.C.reshape(n, 9).T, st.F.reshape(n, 9).T],
-            axis=0,
-        )
-        gm = _mass_dense(st.x) if want_grid_m else jnp.zeros((0,), f32)
-        return out, (st.prim_pos, st.prim_rot, st.prim_gap), gm
-
-    if fallback:
-        rows, poses, gm = jax.lax.cond(ok, _fast, _slow, rows, poses)
-    else:
-        rows, poses, gm = _fast(rows, poses)
-
-    rows = local_transfer.unsort_cols(order, rank, rows)
-    new_state = SimState(
-        x=rows[0:3].T, v=rows[3:6].T,
-        C=rows[6:15].T.reshape(n, 3, 3), F=rows[15:24].T.reshape(n, 3, 3),
-        prim_pos=poses[0], prim_rot=poses[1], prim_gap=poses[2],
-    )
-    if want_grid_m:
-        return new_state, gm, off0
-    return new_state
-
-
-def substep_rows_batched(scene: SceneSpec, mats: Materials, rows_f, poses_b,
-                         ctrl_b, softness_b, n: int, B: int, off_b=None,
-                         offs_b=None):
-    """One substep on FLAT batched rows state: rows_f (24, B*N), env b
-    owning columns [b*N, (b+1)*N) (sorted, padded). poses_b / ctrl_b have a
-    leading B. off_b (B, 3) / offs_b (B, NC, 3): crop and chunk-window
-    origins; when given (env_step_batched hoists its margin-2 entry
-    windows) the per-substep planning is skipped, else recomputed from
-    current positions. Everything is either the single-env channel-major
-    code on wider arrays or an explicit (B, NC)-grid Pallas kernel — no
-    vmap anywhere (a vmapped multi-operand lax.sort, and vmapped pallas
-    SMEM operands, both fail to compile on XLA:TPU)."""
-    from . import pallas_local
-    from .pallas_stress import stress_affine_rows
-
-    D = crop_size(scene)
-    plan = local_transfer.plan_for(scene, D)
-    BN = rows_f.shape[1]
-    itp = ROWS_INTERPRET
-
-    x3 = rows_f[0:3]
-    if off_b is None:
-        off_b = local_transfer.crop_offset_cols_flat(scene, x3, D, B)
-    if offs_b is None:
-        offs_b = local_transfer.chunk_offsets_cols_flat(
-            scene, plan, x3, off_b, D, B).offs
-
-    outCF = stress_affine_rows(scene, mats, interpret=itp)(rows_f[6:24])
-    newF9, aff9 = outCF[0:9], outCF[9:18]
-
-    N = BN // B
-    maskr = ((jax.lax.iota(jnp.int32, BN) % N) < n).astype(
-        rows_f.dtype)[None, :]
-    rows16 = jnp.concatenate([x3, rows_f[3:6], aff9, maskr], axis=0)
-
-    p2g_b, g2p_b = pallas_local.transfer_fns_batched(scene, plan, D,
-                                                     interpret=itp)
-    grid4 = p2g_b(rows16, offs_b, off_b)  # (B, 4, D^3)
-
-    poses1 = _fk_step_batched(scene, poses_b, ctrl_b)
-    if scene.primitives:
-        from . import pallas_gridop
-
-        pgo_b = pallas_gridop.grid_op_fns_batched(scene, D, interpret=itp)
-        pf = jnp.concatenate(
-            [poses_b[0], poses_b[1], poses1[0], poses1[1]], axis=2
-        ).astype(jnp.float32)
-        gap2 = jnp.stack([poses_b[2], poses1[2]], axis=2).astype(jnp.float32)
-        gv3 = pgo_b(grid4, pf, gap2, softness_b, off_b)  # (B, 3, D^3)
-    else:
-        gv3 = jax.vmap(
-            lambda g4, pf_, pf1, o: grid_op_cm(
-                scene, g4, pf_, pf1, softness_b[0], D, o)
-        )(grid4, poses_b, poses1, off_b)
-
-    rows4 = jnp.concatenate([x3, maskr], axis=0)
-    out15 = g2p_b(rows4, gv3, offs_b, off_b)  # (15, B*N)
-
-    new_rows = jnp.concatenate(
-        [out15[12:15], out15[0:3], out15[3:12], newF9], axis=0)
-    return new_rows, poses1
-
-
-def _fk_step_batched(scene: SceneSpec, poses_b, ctrl_b):
-    """Forward kinematics for all primitives over the env batch. The pose
-    arrays are tiny ((B, k, 3/4)); plain batched jnp (prim.forward_kinematics
-    is elementwise over leading dims except quaternion products, handled by
-    vmap of the per-env step — safe to vmap: no sort/pallas inside)."""
-    return jax.vmap(lambda p, c: _fk_step(scene, p, c))(poses_b, ctrl_b)
-
-
-def _pack_flat(states: SimState, B: int, n: int, N: int):
-    """SimState (leading B) -> flat rows (24, B*N), pads replicating each
-    env's last column."""
-    f32 = jnp.float32
-    rows = jnp.concatenate(
-        [states.x.transpose(2, 0, 1), states.v.transpose(2, 0, 1),
-         states.C.reshape(B, n, 9).transpose(2, 0, 1),
-         states.F.reshape(B, n, 9).transpose(2, 0, 1)], axis=0,
-    ).astype(f32)  # (24, B, n)
-    if N > n:
-        pad = jnp.broadcast_to(rows[:, :, n - 1 : n], (24, B, N - n))
-        rows = jnp.concatenate([rows, pad], axis=2)
-    return rows.reshape(24, B * N)
-
-
-def env_step_batched(scene: SceneSpec, mats: Materials, states: SimState,
-                     actions, softness, want_grid_m: bool = False):
-    """Batched env step on the FLAT rows layout: all B envs' particles
-    concatenated on the column axis and sorted by ONE wide multi-operand
-    lax.sort with env-major keys (env * (G^3+1) + cellkey) — stability
-    keeps env blocks contiguous and each env's pads at its block end. The
-    transfers run the explicit (B, NC)-grid Pallas kernels
-    (pallas_local.transfer_fns_batched, pallas_gridop.grid_op_fns_batched).
-
-    Why not jax.vmap over env_step: (a) vmap's pallas batching rule blocks
-    the SMEM scalar operands, which Mosaic rejects; (b) a vmapped
-    multi-operand lax.sort never finishes XLA:TPU compilation (measured
-    >14 min at B=4 vs ~1 min unbatched). No dense fallback (same contract
-    as env_step(fallback=False)).
-
-    states: SimState with leading batch B; actions (B, action_dim);
-    softness scalar or (B,). Returns new states, plus per-env
-    (grid_m (B, D^3), off (B, 3)) when want_grid_m.
-
-    New capability vs the reference (one env per process,
-    plb/engine/taichi_env.py:6); unblocks BASELINE config 5."""
-    sim = scene.simulator
-    D = crop_size(scene)
-    plan = local_transfer.plan_for(scene, D)
-    B, n = states.x.shape[0], states.x.shape[1]
-    N = rows_pad(scene, n)
-    f32 = jnp.float32
-
-    ctrl_b = jax.vmap(lambda a: make_controls(scene, a, f32))(
-        jnp.asarray(actions, f32))
-    softness_b = jnp.broadcast_to(jnp.asarray(softness, f32), (B,))
-
-    rows = _pack_flat(states, B, n, N)  # (24, B*N)
-    key = local_transfer.sort_keys_cols_flat(scene, rows[0:3], B, N, n)
-    # argsort + gather, NOT the multi-operand sort: row slices feeding a
-    # wide variadic lax.sort have pathological XLA:TPU compile time (see
-    # local_transfer.sort_cols_gather)
-    rows, order, rank = local_transfer.sort_cols_gather(key, rows)
-
-    # env-step-entry windows (2-cell margin, origin down-shifted 1): exact
-    # for the whole step's drift, hoisted out of the substep scan (and out
-    # of its remat recompute); the final mass kernel shares them too
-    off0_b = local_transfer.crop_offset_cols_flat(scene, rows[0:3], D, B)
-    offs0_b = local_transfer.chunk_offsets_cols_flat(
-        scene, plan, rows[0:3], off0_b, D, B, margin=2).offs
-
-    poses_b = (states.prim_pos.astype(f32), states.prim_rot.astype(f32),
-               states.prim_gap.astype(f32))
-
-    def body(carry, _):
-        r, p = carry
-        return substep_rows_batched(
-            scene, mats, r, p, ctrl_b, softness_b, n, B,
-            off_b=off0_b, offs_b=offs0_b), None
-
-    if sim.remat in ("substep", "both"):
-        body = jax.checkpoint(body)
-    (rows, poses_b), _ = jax.lax.scan(body, (rows, poses_b), None,
-                                      length=sim.substeps)
-
-    if want_grid_m:
-        from . import pallas_local
-
-        mass_b = pallas_local.mass_fns_batched(scene, plan, D,
-                                               interpret=ROWS_INTERPRET)
-        maskr = ((jax.lax.iota(jnp.int32, B * N) % N) < n).astype(
-            f32)[None, :]
-        rows4m = jnp.concatenate([rows[0:3], maskr], axis=0)
-        gm = mass_b(rows4m, offs0_b, off0_b)  # (B, D^3)
-
-    rows = local_transfer.unsort_cols_gather(order, rank, rows)
-    rows = rows.reshape(24, B, N)[:, :, :n]
-    new_states = SimState(
-        x=rows[0:3].transpose(1, 2, 0), v=rows[3:6].transpose(1, 2, 0),
-        C=rows[6:15].transpose(1, 2, 0).reshape(B, n, 3, 3),
-        F=rows[15:24].transpose(1, 2, 0).reshape(B, n, 3, 3),
-        prim_pos=poses_b[0], prim_rot=poses_b[1], prim_gap=poses_b[2],
-    )
-    if want_grid_m:
-        return new_states, gm, off0_b
-    return new_states
-
-
-def _pad_rows_cols(rows, n: int, N: int):
-    """Pad (24, n) rows to (24, N): x replicates the last (sorted) column
-    so pads never widen a window; v/C zero; F identity."""
-    if N == n:
-        return rows
-    f32 = rows.dtype
-    padx = jnp.broadcast_to(rows[0:3, n - 1 : n], (3, N - n))
-    padvC = jnp.zeros((12, N - n), f32)
-    padF = jnp.tile(
-        jnp.asarray([1, 0, 0, 0, 1, 0, 0, 0, 1], f32)[:, None], (1, N - n))
-    return jnp.concatenate(
-        [rows, jnp.concatenate([padx, padvC, padF], axis=0)], axis=1)
-
-
-def _substep_dense(scene: SceneSpec, mats: Materials, state: SimState, ctrl,
-                   softness) -> SimState:
-    """Plain dense-crop substep (no chunking) — the rows path's fallback."""
-    sim = scene.simulator
-    D = crop_size(scene)
-    new_F, affine = stress_affine(scene, mats, state.C, state.F)
-    aw = axis_weights(scene, state.x, D)
-    kr = (kr_factors(aw, D)
-          if state.x.shape[0] <= transfer_mod._DENSE_CHUNK else None)
-    grid_v_in, grid_m = p2g_dense(scene, aw, state.v, affine, D, kr)
-    poses1 = _fk_step(scene, (state.prim_pos, state.prim_rot, state.prim_gap),
-                      ctrl)
-    grid_v_out = grid_op(
-        scene, grid_v_in, grid_m,
-        (state.prim_pos, state.prim_rot, state.prim_gap), poses1,
-        softness, D, aw.off,
-    )
-    new_v, new_C = g2p_dense(scene, aw, grid_v_out, D, kr)
-    new_x = jnp.maximum(
-        jnp.minimum(state.x + sim.dt * new_v, 1.0 - 3 * sim.dx), 0.0)
-    return SimState(x=new_x, v=new_v, C=new_C, F=new_F,
-                    prim_pos=poses1[0], prim_rot=poses1[1],
-                    prim_gap=poses1[2])
 
 
 def make_controls(scene: SceneSpec, action, dtype) -> Controls:
@@ -859,18 +403,10 @@ def make_controls(scene: SceneSpec, action, dtype) -> Controls:
 
 
 def env_step(scene: SceneSpec, mats: Materials, state: SimState, action,
-             softness, fallback: bool = True) -> SimState:
+             softness) -> SimState:
     """One environment step = `substeps` physics substeps under constant
-    manipulator velocities (reference MPMSimulator.step :365-376).
-    fallback=False (batched/vmapped callers) drops the dense-transfer
-    safety net — see _env_step_rows."""
-    dtype = state.x.dtype
-    ctrl = make_controls(scene, action, dtype)
-
-    if use_rows_path(scene, dtype):
-        return _env_step_rows(scene, mats, state, ctrl, softness,
-                              fallback=fallback)
-
+    manipulator velocities (reference MPMSimulator.step :365-376)."""
+    ctrl = make_controls(scene, action, state.x.dtype)
     use_local = local_transfer.enabled(scene, crop_size(scene))
 
     if use_local:
@@ -907,21 +443,14 @@ def env_step(scene: SceneSpec, mats: Materials, state: SimState, action,
 
 
 def env_step_with_grid_m(scene: SceneSpec, mats: Materials, state: SimState,
-                         action, softness, fallback: bool = True):
+                         action, softness):
     """env_step + the final state's crop grid-mass in one fused graph:
-    (new_state, grid_m_crop (D^3,), off (3,)). On the rows path the mass
-    comes from the mass-only Pallas kernel sharing the env step's sort;
-    elsewhere from the dense transfer. Consumed by losses.loss_from_crop —
-    together they replace the loss's full-grid dense mass transfer
-    (reference compute_loss_kernel's grid_m refill, loss.py:186-208)."""
+    (new_state, grid_m_crop (D^3,), off (3,)), the mass from the dense
+    transfer. Consumed by losses.loss_from_crop — together they replace the
+    loss's full-grid dense mass transfer (reference compute_loss_kernel's
+    grid_m refill, loss.py:186-208)."""
     dtype = state.x.dtype
-    ctrl = make_controls(scene, action, dtype)
     D = crop_size(scene)
-
-    if use_rows_path(scene, dtype):
-        return _env_step_rows(scene, mats, state, ctrl, softness,
-                              want_grid_m=True, fallback=fallback)
-
     new_state = env_step(scene, mats, state, action, softness)
     aw = axis_weights(scene, new_state.x, D)
     n = new_state.x.shape[0]

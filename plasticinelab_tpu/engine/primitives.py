@@ -2,7 +2,7 @@
 
 Behavioral reference: plb/engine/primitive/{primive_base.py, primitives.py}.
 Shape polymorphism is resolved at trace time from the static PrimitiveSpec
-(the TPU analogue of Taichi's ti.static specialization): every function below
+(the JAX analogue of Taichi's ti.static specialization): every function below
 is pure jnp over a single primitive's pose, broadcastable over grid points /
 particles, so the per-scene jitted program inlines exactly the shapes it uses.
 

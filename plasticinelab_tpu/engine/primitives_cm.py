@@ -1,12 +1,12 @@
 """Component-major rigid-SDF math: tuples of (M,) arrays instead of (..., 3).
 
-TPU layouts want the long axis minor: the (..., 3)-vector formulation of
-engine/primitives.py forces XLA into 3-wide minor dimensions on the grid's
-64k-cell arrays, which measured ~7x slower than bandwidth on the grid_op
-chain. This module re-expresses the same math (identical constants and
-branch structure — behavioral reference plb/engine/primitive/primitives.py
-and primive_base.py:82-115) on per-component arrays, where every op is a
-full-width VPU pass. It is also the form Pallas kernels consume.
+The (..., 3)-vector formulation of engine/primitives.py puts a 3-wide
+dimension minor on the grid's cell arrays. This module re-expresses the
+same math (identical constants and branch structure — behavioral reference
+plb/engine/primitive/primitives.py and primive_base.py:82-115) on
+per-component arrays, so each op runs over the long cell axis.
+mpm.grid_op_cm uses it; which of the two grid-update formulations the GPU
+runs faster is not measured yet (ROADMAP.md).
 
 Vectors are (x, y, z) tuples of equal-shape arrays; quaternions are
 (w, x, y, z) tuples of scalars (poses are per-scene scalars). Tested

@@ -7,7 +7,7 @@ sphere-tracing, plasticine SDF march with bisection refinement, goal-density
 ghost (blinking at 50% via even samples), <=2 diffuse bounces with optional
 directional light, vignette+exposure tone map.
 
-TPU design: rays are traced in pixel tiles (lax.map over tile batches) so
+Design: rays are traced in pixel tiles (lax.map over tile batches) so
 each tile's march while_loops stop at the tile's own slowest lane — sky and
 off-object tiles exit after a handful of iterations instead of riding the
 whole image's worst ray. Shadow rays use an occlusion-only march (no
@@ -29,14 +29,6 @@ from .. import primitives as prim_mod
 
 DIFFUSE, SPECULAR = 0, 1
 FOV = 0.23
-
-
-def _use_pallas_voxelize() -> bool:
-    """Gather-kernel voxelizer on TPU f32 (PLB_PALLAS_VOXELIZE=0 opts out);
-    the scatter-min path everywhere else (CPU tests, x64)."""
-    if os.environ.get("PLB_PALLAS_VOXELIZE", "1") == "0":
-        return False
-    return jax.default_backend() == "tpu" and not jax.config.jax_enable_x64
 DIST_LIMIT = 100.0
 INF = 1e10
 EXPOSURE = 1.5
@@ -99,11 +91,8 @@ def _sample_tex(tex_flat, res, pos, channels: int):
 # ---------------------------------------------------------------------------
 # corner-packed sampling + in-row distance field
 #
-# Measured on the v5e (tools/profile_loops.py): loop overhead is negligible
-# and gathers inside a compiled loop cost ~9 ns per gathered INDEX regardless
-# of row width or of how steps are grouped into ops — march wallclock is
-# (sequential samples of the worst lane) x (lanes in the op) x 9 ns. The
-# march therefore minimizes SAMPLES PER LANE: the 8 trilinear corners AND a
+# The march minimizes SAMPLES PER LANE (its wallclock is sequential samples
+# of the worst lane times lanes in the op): the 8 trilinear corners AND a
 # per-voxel Chebyshev distance-to-surface are packed into ONE row, so a
 # single gather per step yields both the sample and a certified skip —
 # sphere tracing on an exact cell-distance field, sampling at the reference
@@ -261,12 +250,13 @@ def _march_compacted(pack9, res, bbox, thr, h, vox, o, d, t0, tfar, active0,
                      chunk=None, refine=False):
     """_march_packed over only the ACTIVE lanes, compacted into fixed-size
     chunks. Every lane in a full-width march op costs its gather index
-    whether or not it is active (~9 ns/idx — see the module header), and at
-    512^2 most lanes never intersect the texture bbox; compacting makes
-    march cost proportional to active rays. Lanes are permuted actives-first
+    whether or not it is active, and at 512^2 most lanes never intersect
+    the texture bbox; compacting makes march cost proportional to active
+    rays. Lanes are permuted actives-first
     (argsort of ~active is stable), processed in ceil(count/chunk) dynamic
     chunks by a while_loop, and scattered back — results are identical to
-    the full-width march."""
+    the full-width march. The default chunk was chosen before the H100
+    port and is not yet tuned on it."""
     if chunk is None:
         chunk = int(os.environ.get("PLB_RENDER_MARCH_CHUNK", 65536))
     R = o.shape[0]
@@ -428,15 +418,9 @@ class Renderer:
         return sdf.reshape(-1), col.reshape(-1, 3)
 
     def _packed_volume(self, p, color):
-        """(res^3,) uint32 min-packed (dist << 24 | color) volume; Pallas
-        gather kernel on TPU, scatter-min elsewhere."""
-        if _use_pallas_voxelize() and min(self.voxel_res) >= 32:
-            from .pallas_voxelize import voxelize_packed
-
-            return voxelize_packed(p, color, self.voxel_res, self.dist_scale)
-        return self._scatter_packed(p, color)
-
-    def _scatter_packed(self, p, color):
+        """(res^3,) uint32 min-packed (dist << 24 | color) volume by
+        scatter-min, the reference's bit-packed atomic_min
+        (renderer.py:100-131)."""
         n = p.shape[0]
         res = self.voxel_res
         size = self.bake_size
@@ -459,7 +443,7 @@ class Renderer:
         cube_d = np.linalg.norm(
             offs - np.clip(offs, 0.0, 1.0), axis=1)
         offs = offs[cube_d <= sat]
-        CH = 128  # offsets per scan step (lane-aligned)
+        CH = 128  # offsets per scan step
         M = offs.shape[0]
         pad = (-M) % CH
         offs = np.pad(offs, ((0, pad), (0, 0)))
@@ -855,7 +839,7 @@ class Renderer:
             """Trace S full-image samples in ONE flat (S*W*H)-lane pass.
 
             The march is launch-bound, not gather-bound (the sequential
-            while_loop steps dominate; each step's VPU work is far below
+            while_loop steps dominate; each step's arithmetic is far below
             saturation at W*H lanes), so batching samples into wider lanes
             divides the number of sequential steps per frame by ~S."""
             k1, k2, k3 = jax.random.split(key, 3)
@@ -953,8 +937,7 @@ class Renderer:
         (BASELINE configs[3]): returns
         f(x, colors, prim_pos, prim_rot, prim_gap, key) -> (H, W, 3) f32
         in [0, ~1], jittable AND vmappable — batched envs render their
-        64x64 observations inside the stepping program (the Pallas
-        voxelizer batches via vmap's added grid axis). Same semantics as
+        64x64 observations inside the stepping program. Same semantics as
         render_frame with the goal ghost off and one S=spp lane-batched
         pass (small frames are launch-bound; see render_frame notes)."""
         if spp is None:
@@ -1038,11 +1021,12 @@ class Renderer:
         n_ghost = (spp // 2) if visualize_target else 0
         n_plain = spp - n_ghost
         buf = np.zeros((W, H, 3), np.float32)
-        # samples-per-pass batching measured SLOWER at 512^2 on the v5e (the
-        # march is worst-lane-bound: wider passes run more while_loop rounds,
-        # 29.0 vs 24.6 s/frame at S=5) but wins for SMALL frames (64^2 visual
-        # obs: lanes are cheap, launches dominate) — default to one sample
-        # per pass for big frames, batched for small ones
+        # samples per pass: the march is worst-lane-bound, so wider passes
+        # run more while_loop rounds at big frames, while small frames (64^2
+        # visual obs) are launch-bound — one sample per pass for big frames,
+        # batched for small ones. The lane cap was chosen before the H100
+        # port and is not yet tuned on it; it changes the blocking, not the
+        # image.
         default_lanes = W * H if W * H >= 256 * 256 else 262_144
         max_lanes = int(os.environ.get("PLB_RENDER_MAX_LANES", default_lanes))
         for tflag, n in ((False, n_plain), (True, n_ghost)):

@@ -1,7 +1,7 @@
-"""Batched 3x3 SVD for TPU with the reference's autodiff safeguards.
+"""Batched 3x3 SVD with the reference's autodiff safeguards.
 
 Forward: cyclic-Jacobi eigendecomposition of F^T F — pure elementwise /
-tiny-matmul ops that vectorize over the particle batch on the VPU (no
+tiny-matmul ops that vectorize over the particle batch (no
 lax.while_loop, no LAPACK callback), sign convention det(U)=det(V)=+1 with a
 possibly-negative smallest singular value (Taichi's ti.svd / McAdams
 convention, so R = U V^T is always a proper rotation).
@@ -19,8 +19,8 @@ import jax
 import jax.numpy as jnp
 
 
-# TPU matmuls default to one bf16 pass; physics needs full f32
-# accumulate-and-multiply (Precision.HIGHEST = 6-pass on TPU).
+# Physics needs full f32 multiply-accumulate: HIGHEST keeps XLA from
+# running these 3x3 products in TF32 on the GPU.
 from functools import partial as _partial
 _einsum = _partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
@@ -36,13 +36,13 @@ def _jacobi_rotation(a, v, p, q):
     `a` is a dict of the 6 unique components of the symmetric matrix keyed by
     (i<=j); `v` is a dict of the 9 eigenvector-matrix components. Explicit
     scalar-component updates keep the HLO purely elementwise (fast compile,
-    VPU-vectorized) instead of batched 3x3 einsums.
+    one fusion) instead of batched 3x3 einsums.
     """
     r = 3 - p - q  # the untouched third index
     app, aqq, apq = a[(p, p)], a[(q, q)], a[(p, q)]
     # Rotation zeroing a_pq: tan(2t) = 2*apq/(aqq-app). Computed via the
-    # algebraic half-angle identities (sqrt only — TPU transcendentals
-    # (atan2/sin/cos) are too low-precision in f32 and wreck convergence):
+    # algebraic half-angle identities (sqrt only — f32 atan2/sin/cos
+    # approximations can be too coarse for the Jacobi sweeps to converge):
     #   cos(2t) = (aqq-app)/r, sin(2t) = 2*apq/r, r = hypot(...)
     #   c = sqrt((1+cos2t)/2) >= 0, s = sign(sin2t)*sqrt((1-cos2t)/2)
     y = 2.0 * apq

@@ -1,8 +1,8 @@
-"""Dense separable particle<->grid transfer — the TPU-native scatter.
+"""Dense separable particle<->grid transfer (Khatri-Rao matmuls).
 
-TPUs have no fast random-access scatter/gather; XLA lowers them to ~5ns/elem
-serialized updates, which made the 27-tap APIC transfers 75% of the substep.
-This module reformulates both transfers as MXU matmuls:
+The reference scatters each particle's 27-tap APIC stencil with atomic adds
+(plb/engine/mpm_simulator.py p2g :157-184). Here both transfers are dense
+matmuls instead:
 
   The quadratic B-spline weight factorizes per axis, and the transferred
   momentum  p_mass*v + affine @ (cell - x)*dx  is affine-LINEAR in the cell
@@ -16,23 +16,37 @@ All of it runs on a D^3 crop of the grid that tracks the particle cloud
 (`dynamic` integer offset, static crop size from the scene spec), since the
 cloud occupies a small fraction of the 64^3 domain. D == n_grid disables
 cropping. Everything is differentiable (matmul VJPs are matmuls — no scatter
-appears in the backward pass either).
+appears in the backward pass either) and deterministic: no atomics, so two
+runs sum in the same order.
 """
 from __future__ import annotations
 
 import math
-from functools import partial
-from typing import NamedTuple, Tuple
+import os
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 
 
-# TPU matmuls default to one bf16 pass (0.4% relative error — fatal for
-# physics). HIGH = 3-pass bf16 ~ f32-equivalent accuracy at half the cost of
-# HIGHEST; the transfer matmuls are the hot path, so HIGH is the right point.
-from functools import partial as _partial
-_einsum = _partial(jnp.einsum, precision=jax.lax.Precision.HIGH)
+# Matmul precision of every transfer contraction (this module and
+# local_transfer). On the GPU, Precision.HIGH lets XLA run float32 matmuls
+# in TF32 (10-bit mantissa), which rounds the very values the one-hot
+# placement matmuls move; HIGHEST keeps full float32. Tolerance: after 1 and
+# 19 substeps of Move-v1 at all ~10k particles, the max abs error of each of
+# x, v, C and F against the float64 oracle (tests/oracle_mpm.py), divided
+# by that field's largest magnitude, must stay <= TRANSFER_TOLERANCE — the
+# state-fidelity target of BASELINE.json, taken relative to each field's
+# scale because C reaches ~1e2 at contacts and float32 keeps ~7 digits of
+# it. chip_smoke.py checks it on the card at both precisions
+# (docs/PARITY.md, PERF.md).
+TRANSFER_PRECISION = jax.lax.Precision.HIGHEST
+TRANSFER_TOLERANCE = 1e-3
+
+
+def _einsum(*args, **kwargs):
+    return jnp.einsum(*args, precision=TRANSFER_PRECISION, **kwargs)
+
 
 import numpy as np
 
@@ -151,9 +165,9 @@ def kr_factors(aw: AxisWeights, D: int):
 # matmuls with a bounded working set. Small scenes (every golden-tested
 # config) take the one-shot path unchanged. Under vmap the chunk buffer
 # gains the batch axis — batched sweeps can shrink it via the env var.
-import os as _os
-
-_DENSE_CHUNK = int(_os.environ.get("PLB_DENSE_CHUNK", "12288"))
+# The default was chosen before the H100 port and is not yet tuned on it;
+# it changes how the work is blocked, not the result.
+_DENSE_CHUNK = int(os.environ.get("PLB_DENSE_CHUNK", "12288"))
 
 
 def _chunk_pad(a, n_pad):
@@ -169,11 +183,8 @@ def _aw_block(aw: AxisWeights, sl):
     )
 
 
-def p2g_dense(scene: SceneSpec, aw: AxisWeights, v, affine, D: int, kr=None,
-              mask=None):
-    """APIC momentum + mass transfer. Returns (grid_v (D^3,3), grid_m (D^3,)).
-    `mask` (n,) zeroes padded particles' contributions (used by the padded
-    rows-layout fallback path)."""
+def p2g_dense(scene: SceneSpec, aw: AxisWeights, v, affine, D: int, kr=None):
+    """APIC momentum + mass transfer. Returns (grid_v (D^3,3), grid_m (D^3,))."""
     sim = scene.simulator
     dtype = v.dtype
     n = v.shape[0]
@@ -186,19 +197,13 @@ def p2g_dense(scene: SceneSpec, aw: AxisWeights, v, affine, D: int, kr=None,
         parts = [_chunk_pad(a, n_pad).reshape((nc, P) + a.shape[1:])
                  for a in (aw.Wx, aw.Wy, aw.Wz, aw.WxA, aw.WyB, aw.WzC,
                            aw.px, v, affine)]
-        if mask is not None:
-            parts.append(_chunk_pad(mask, n_pad).reshape(nc, P))
 
         @jax.checkpoint  # recompute the chunk's KR factors in the backward
         def body(acc, blk):
-            if mask is not None:
-                wx, wy, wz, wxa, wyb, wzc, px, vb, ab, mb = blk
-            else:
-                wx, wy, wz, wxa, wyb, wzc, px, vb, ab = blk
-                mb = None
+            wx, wy, wz, wxa, wyb, wzc, px, vb, ab = blk
             awb = AxisWeights(Wx=wx, Wy=wy, Wz=wz, WxA=wxa, WyB=wyb,
                               WzC=wzc, off=aw.off, px=px)
-            gv, gm = p2g_dense(scene, awb, vb, ab, D, mask=mb)
+            gv, gm = p2g_dense(scene, awb, vb, ab, D)
             return (acc[0] + gv, acc[1] + gm), None
 
         init = (jnp.zeros((D ** 3, 3), dtype), jnp.zeros((D ** 3,), dtype))
@@ -215,11 +220,6 @@ def p2g_dense(scene: SceneSpec, aw: AxisWeights, v, affine, D: int, kr=None,
 
     ones = jnp.full((n, 1), sim.p_mass, dtype)
     A4 = jnp.concatenate([A, ones], axis=-1)  # momentum + mass channels
-    if mask is not None:
-        A4 = A4 * mask[:, None]
-        Ba = Ba * mask[:, None]
-        Bb = Bb * mask[:, None]
-        Bc = Bc * mask[:, None]
 
     KRyz, KRyzB, KRyzC = kr if kr is not None else kr_factors(aw, D)
 

@@ -6,24 +6,16 @@ loss deltas, NaN crash-dump guard :50-56) on the gymnasium API.
 from __future__ import annotations
 
 import datetime
-import os
 import pickle
 from typing import Optional
 
+import gymnasium as gym
 import numpy as np
+from gymnasium.spaces import Box
 
-try:
-    import gymnasium as gym
-    from gymnasium.spaces import Box
-except ImportError:  # pragma: no cover
-    import gym
-    from gym.spaces import Box
-
-from ..config.loader import load_scene
-from ..config.spec import LossSpec, SceneSpec
+from ..config.spec import SceneSpec
 from ..engine.sim import PhysicsEnv
-
-SPEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs")
+from . import load_task_scene
 
 
 class PlasticineEnv(gym.Env):
@@ -41,7 +33,7 @@ class PlasticineEnv(gym.Env):
         self._image_obs_res = image_obs_res
         self._image_obs_spp = image_obs_spp
         if scene is None:
-            scene = self._load_scene(cfg_path, version)
+            scene = load_task_scene(cfg_path, version)
         self.taichi_env = PhysicsEnv(scene, nn=nn)
         self.taichi_env.initialize()
         self.cfg = self.taichi_env.scene.env
@@ -56,16 +48,6 @@ class PlasticineEnv(gym.Env):
         else:
             self.observation_space = Box(-np.inf, np.inf, obs.shape)
         self.action_space = Box(-1.0, 1.0, (self.taichi_env.scene.action_dim,))
-
-    @staticmethod
-    def _load_scene(cfg_path: str, version: int) -> SceneSpec:
-        """Resolve a task spec: resolved JSON in specs/ first, else a
-        reference-schema YAML path with VARIANTS."""
-        base = os.path.splitext(os.path.basename(cfg_path))[0]
-        cand = os.path.join(SPEC_DIR, f"{base}-v{version}.json")
-        if os.path.exists(cand):
-            return load_scene(cand)
-        return load_scene(cfg_path, version)
 
     # ------------------------------------------------------------------
     def reset(self, *, seed=None, options=None):

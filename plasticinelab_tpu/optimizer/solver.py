@@ -162,7 +162,8 @@ class Solver:
         state0 = env.state  # SimState PyTree at the solve's start
 
         def rollout_loss(actions):
-            rscene = mpm.resolve_remat(scene, int(actions.shape[0]))
+            rscene = mpm.resolve_remat(scene, int(actions.shape[0]),
+                                       mpm.device_memory_bytes())
 
             def step_fn(carry, action):
                 st, gm, off = mpm.env_step_with_grid_m(
@@ -303,13 +304,12 @@ class Solver:
         raise NotImplementedError(cfg.init_sampler)
 
 
-def solve_action(env, path, logger, args):
-    """CLI entry (reference solver.py:86-101): optimize, then replay the best
-    actions and dump one PNG per step."""
+def solve_action(taichi_env: PhysicsEnv, path, logger, args, T: int = 50):
+    """CLI entry (reference solver.py:86-101): optimize a T-step action
+    sequence from the env's initial state, then replay the best actions and
+    dump one PNG per step."""
     os.makedirs(path, exist_ok=True)
-    env.reset()
-    taichi_env: PhysicsEnv = env.unwrapped.taichi_env
-    T = env._max_episode_steps
+    taichi_env.initialize()
     solver = Solver(
         taichi_env, logger, None,
         n_iters=(args.num_steps + T - 1) // T, softness=args.softness, horizon=T,
@@ -324,9 +324,10 @@ def solve_action(env, path, logger, args):
         import cv2
     except ImportError:
         cv2 = None
+    taichi_env.initialize()
     for idx, act in enumerate(action):
-        env.step(act)
-        img = env.render(mode="rgb_array")
+        taichi_env.step(act)
+        img = taichi_env.render(mode="rgb_array")
         if cv2 is not None:
             cv2.imwrite(f"{path}/{idx:04d}.png", img[..., ::-1])
         else:

@@ -206,14 +206,12 @@ class SolverNN:
         return best_params
 
 
-def solve_nn(env, path, logger, args):
+def solve_nn(taichi_env: PhysicsEnv, path, logger, args, T: int = 50):
     """CLI entry (reference solver_nn.py:73-123)."""
     os.makedirs(path, exist_ok=True)
-    T = env._max_episode_steps
-    taichi_env = env.unwrapped.taichi_env
     if taichi_env.nn is None:
         taichi_env.nn = MLPPolicy(taichi_env.scene)
-    env.reset()
+    taichi_env.initialize()
 
     solver = SolverNN(
         taichi_env, logger, None,
@@ -226,6 +224,7 @@ def solve_nn(env, path, logger, args):
         params = solver.solve_device()
 
     # replay with the best params, dumping frames
+    taichi_env.initialize()
     taichi_env.set_copy(True)
     policy = taichi_env.nn
     ptree = policy.set_params(params)

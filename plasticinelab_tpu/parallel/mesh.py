@@ -3,14 +3,14 @@
 The reference has no distributed backend at all (SURVEY.md §2.9: single
 ti.init, one env per process). Here batching is a first-class capability:
 a SimState with a leading batch axis, vmapped physics, and a 1-D
-jax.sharding.Mesh over the batch axis so XLA partitions the sweep over ICI.
-Parameters / goal tensors are replicated; each env's 64^3 grid lives wholly
-on one chip, so no halo exchange is needed — the only collective is the
-mean-loss psum XLA inserts for the gradient.
+jax.sharding.Mesh over the batch axis so XLA (GSPMD) partitions the sweep
+over the devices. Parameters / goal tensors are replicated; each env's 64^3
+grid lives wholly on one device, so no halo exchange is needed — the only
+collective is the mean-loss all-reduce XLA inserts for the gradient. The
+mesh is 1-D over the batch and assumes no topology.
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import Optional
 
 import jax
@@ -24,19 +24,6 @@ from ..engine import mpm
 from ..engine.state import Materials, SimState
 
 __all__ = ["make_mesh", "batch_states", "build_batched_rollout_grad"]
-
-
-def _compiler_options():
-    """Optional per-compile XLA:TPU knobs. PLB_SCOPED_VMEM_KIB raises the
-    scoped-vmem stack limit (default 16 MiB) — large batched kernels'
-    backward passes can exceed it when XLA stages a kernel output in
-    vmem (observed at B=32, g2p backward)."""
-    import os
-
-    kib = os.environ.get("PLB_SCOPED_VMEM_KIB")
-    if not kib:
-        return {}
-    return {"compiler_options": {"xla_tpu_scoped_vmem_limit_kib": int(kib)}}
 
 
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = "env") -> Mesh:
@@ -68,105 +55,48 @@ def build_batched_rollout_grad(scene: SceneSpec, mats: Materials,
     """Compile d(mean rollout loss)/d(actions) for a batch of envs sharded
     over `mesh`. actions: (B, T, action_dim); states: SimState with leading B.
 
-    Per-env-step jax.checkpoint bounds HBM at ~one substep's activations per
-    step regardless of horizon (SURVEY.md §5 long-horizon strategy).
+    The remat policy is resolved from the batch, the horizon and the first
+    mesh device's memory (mpm.resolve_remat); per-env-step jax.checkpoint
+    bounds memory at ~one env step's activations per step regardless of
+    horizon (SURVEY.md §5 long-horizon strategy). Envs are vmapped over the
+    dense transfer: under vmap the windowed transfer's dense fallback (a
+    lax.cond) would run both arms.
 
     out_mode: "force" pins out_shardings to (replicated loss, batch-sharded
     grad); "auto" leaves them to XLA's propagation — used by the sharding
     test / dryrun to PROVE the compute partitioned (if the program silently
     replicated, propagation would not land P(axis) on the grad output).
     """
-
     import dataclasses
 
-    # The rows/Pallas path batches directly (vmapped pallas_call grids,
-    # fallback=False so no lax.cond runs both branches under vmap). Only
-    # when it is unavailable (CPU tests, x64, tiny scenes) downgrade to the
-    # vmappable chunked-dense transfer.
-    if not mpm.use_rows_path(scene, jnp.float32):
-        scene = dataclasses.replace(
-            scene, simulator=dataclasses.replace(scene.simulator,
-                                                 transfer="dense"))
+    scene = dataclasses.replace(
+        scene, simulator=dataclasses.replace(scene.simulator,
+                                             transfer="dense"))
 
-    use_rows = mpm.use_rows_path(scene, jnp.float32)
-
-    def rollout_loss(state0, actions, softness):
-        @jax.checkpoint
-        def step_fn(carry, action):
-            st = mpm.env_step(scene, mats, carry, action, softness,
-                              fallback=False)
-            info = losses_mod.loss_and_components(scene, loss_state, st)
-            return st, info["loss"]
-
-        final, per_step = jax.lax.scan(step_fn, state0, actions)
-        return jnp.sum(per_step)
-
-    def rollout_losses_rows(states, actions_tb, softness):
-        """All envs step together through the explicit batched kernels;
-        actions_tb is time-major (T, B, A). Returns per-env loss sums."""
-        # horizon and batch are static at trace time: resolve "auto" to
-        # the cheapest policy whose stored state fits HBM (mpm.resolve_remat)
-        rscene = mpm.resolve_remat(scene, int(actions_tb.shape[0]),
-                                   int(states.x.shape[0]))
-
-        def step_fn(carry, acts_t):
-            st, gm, off = mpm.env_step_batched(
-                rscene, mats, carry, acts_t, softness, want_grid_m=True)
-            losses_t = jax.vmap(
-                lambda g, o, s: losses_mod.loss_from_crop(
-                    rscene, loss_state, g, o, s)["loss"])(gm, off, st)
-            return st, losses_t
-
-        # outer per-env-step checkpoint follows the resolved remat policy —
-        # "both" bounds HBM for giant sweeps, "substep"-only skips the
-        # third forward pass when per-step batched states fit (B x T x state)
-        if rscene.simulator.remat in ("env_step", "both"):
-            step_fn = jax.checkpoint(step_fn)
-
-        _, per_step = jax.lax.scan(step_fn, states, actions_tb)
-        return jnp.sum(per_step, axis=0)
+    budget = mpm.device_memory_bytes(mesh.devices.flat[0])
 
     def batched_loss(states, actions, softness):
-        if use_rows:
-            losses_b = rollout_losses_rows(
-                states, actions.transpose(1, 0, 2), softness)
-        else:
-            losses_b = jax.vmap(
-                lambda s, a: rollout_loss(s, a, softness))(states, actions)
-        return jnp.mean(losses_b)
+        # shapes are static at trace time: per-device batch and horizon
+        B, T = actions.shape[0], actions.shape[1]
+        rscene = mpm.resolve_remat(scene, T, budget,
+                                   batch=max(1, B // mesh.devices.size))
+
+        def rollout_loss(state0, actions):
+            def step_fn(carry, action):
+                st = mpm.env_step(rscene, mats, carry, action, softness)
+                info = losses_mod.loss_and_components(rscene, loss_state, st)
+                return st, info["loss"]
+
+            if rscene.simulator.remat in ("env_step", "both"):
+                step_fn = jax.checkpoint(step_fn)
+            _, per_step = jax.lax.scan(step_fn, state0, actions)
+            return jnp.sum(per_step)
+
+        return jnp.mean(jax.vmap(rollout_loss)(states, actions))
 
     vg = jax.value_and_grad(batched_loss, argnums=1)
-
-    if use_rows and len(mesh.devices.flat) > 1:
-        # GSPMD cannot partition a pallas_call along the batch grid —
-        # shard_map splits the batch explicitly so each device runs its own
-        # kernels; the mean's psum is inserted by the grad of shard_map.
-        from jax.experimental.shard_map import shard_map
-
-        def sharded_loss(states, actions, softness):
-            def per_shard(s, a):
-                local = rollout_losses_rows(s, a.transpose(1, 0, 2),
-                                            softness)
-                return jax.lax.psum(jnp.sum(local), axis_name) / actions.shape[0]
-
-            f = shard_map(per_shard, mesh=mesh,
-                          in_specs=(P(axis_name), P(axis_name)),
-                          out_specs=P(), check_rep=False)
-            return f(states, actions)
-
-        vg = jax.value_and_grad(sharded_loss, argnums=1)
-        shard_b = NamedSharding(mesh, P(axis_name))
-        replicated = NamedSharding(mesh, P())
-        return jax.jit(vg, in_shardings=(shard_b, shard_b, replicated),
-                       out_shardings=(replicated, shard_b))
-
     shard_b = NamedSharding(mesh, P(axis_name))      # shard leading batch axis
     replicated = NamedSharding(mesh, P())
     kw = ({"out_shardings": (replicated, shard_b)} if out_mode == "force"
           else {})
-    return jax.jit(
-        vg,
-        in_shardings=(shard_b, shard_b, replicated),
-        **kw,
-        **_compiler_options(),
-    )
+    return jax.jit(vg, in_shardings=(shard_b, shard_b, replicated), **kw)

@@ -9,6 +9,7 @@ over a device mesh. One host sync per step for the full batch.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from functools import partial
 from typing import Optional
@@ -78,16 +79,12 @@ class VecPlasticineEnv:
         elif obs_mode == "rgb":
             colors = np.full((len(particles),), 0x999999, np.int32)
         scene = scene.with_n_particles(len(particles))
-        # Batched stepping vmaps the physics. The rows/Pallas kernels batch
-        # directly (vmapped pallas_call grids, fallback=False); only when
-        # that path is unavailable (CPU, x64, tiny scenes) force the
-        # vmappable chunked-dense transfer backend.
-        import dataclasses
-
-        if not mpm.use_rows_path(scene, jnp.float32):
-            scene = dataclasses.replace(
-                scene, simulator=dataclasses.replace(scene.simulator,
-                                                     transfer="dense"))
+        # Batched stepping vmaps the physics; under vmap the windowed
+        # transfer's dense fallback would run both arms, so use the dense
+        # transfer throughout.
+        scene = dataclasses.replace(
+            scene, simulator=dataclasses.replace(scene.simulator,
+                                                 transfer="dense"))
         self.scene = scene
         self.batch = batch
         self.horizon = horizon
@@ -158,7 +155,7 @@ class VecPlasticineEnv:
 
         def one_step(state, action, softness):
             st, gm, off = mpm.env_step_with_grid_m(
-                scene, mats, state, action, softness, fallback=False)
+                scene, mats, state, action, softness)
             info = losses_mod.loss_from_crop(scene, loss_state, gm, off, st)
             return st, _obs_in_graph(scene, st), info["loss"], info["iou"]
 
@@ -167,20 +164,7 @@ class VecPlasticineEnv:
             iou0 = losses_mod.iou(info["grid_m"], loss_state.target_density)
             return info["loss"], _obs_in_graph(scene, state), iou0
 
-        if mpm.use_rows_path(scene, jnp.float32):
-            # explicit batched Pallas kernels — vmap cannot batch the SMEM
-            # operands (see mpm.env_step_batched)
-            def step_b(states, actions, softness):
-                st, gm, off = mpm.env_step_batched(
-                    scene, mats, states, actions, softness,
-                    want_grid_m=True)
-                obs = jax.vmap(lambda s: _obs_in_graph(scene, s))(st)
-                info = jax.vmap(
-                    lambda g, o, s: losses_mod.loss_from_crop(
-                        scene, loss_state, g, o, s))(gm, off, st)
-                return st, obs, info["loss"], info["iou"]
-        else:
-            step_b = jax.vmap(one_step, in_axes=(0, 0, None))
+        step_b = jax.vmap(one_step, in_axes=(0, 0, None))
         loss_b = jax.vmap(one_loss)
         if obs_mode == "rgb":
             state_step_b, state_loss_b = step_b, loss_b

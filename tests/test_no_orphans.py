@@ -1,6 +1,5 @@
 """Every module in the package must have an importer (or be a known entry
-point) — dead kernels rot (round-2 verdict: engine/pallas_transfer.py sat
-orphaned for a round)."""
+point) — dead kernels rot."""
 import os
 import re
 

@@ -1,4 +1,4 @@
-"""Extended oracle coverage (VERDICT round-2 item 5): golden substep tests
+"""Extended oracle coverage: golden substep tests
 for all 7 primitive shapes, RollingPin/Chopsticks kinematics, a multi-shape
 scene, and the soft-contact loss — all vs the float64 NumPy oracle.
 

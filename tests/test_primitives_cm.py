@@ -1,4 +1,5 @@
 """Component-major primitive math vs the (..., 3) reference implementation."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -101,3 +102,55 @@ def test_grid_op_cm_matches_grid_op(ground_friction):
     grid4 = jnp.concatenate([gv.T, gm[None]], axis=0)
     v_cm = mpm.grid_op_cm(scene, grid4, pose, pose1, soft, D, off)
     np.testing.assert_allclose(np.asarray(v_cm.T), np.asarray(v_ref), atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", ["fwd", "vjp"])
+def test_grid_op_cm_matches_grid_op_move_v1(mode):
+    """Move-v1's two sphere manipulators in contact with a random crop:
+    the channel-major grid update equals grid_op, forward and VJP (grid and
+    pose cotangents)."""
+    import dataclasses
+
+    import os
+
+    from plasticinelab_tpu.config.loader import load_scene
+    from plasticinelab_tpu.engine import mpm
+    from plasticinelab_tpu.envs import SPEC_DIR
+
+    scene = load_scene(os.path.join(SPEC_DIR, "move-v1.json"))
+    scene = scene.replace(simulator=dataclasses.replace(
+        scene.simulator, dtype="float64"))
+    prims = scene.primitives
+    D = 24
+    rng = np.random.default_rng(8)
+    gv = jnp.asarray(rng.standard_normal((D**3, 3)) * 1e-4)
+    gm = jnp.asarray(np.abs(rng.standard_normal(D**3)) * 1e-4)
+    gm = jnp.where(jnp.asarray(rng.random(D**3) < 0.3), 0.0, gm)
+    # crop around the spheres (~cells 36-50 in x, 36 in y, 48 in z)
+    off = jnp.asarray([32, 26, 38], jnp.int32)
+    pos = jnp.asarray([p.init_pos for p in prims])
+    rot = jnp.asarray([p.init_rot for p in prims])
+    gap = jnp.zeros((len(prims),))
+    soft = jnp.asarray(666.0)
+
+    def ref(gv, gm, pos, pos1):
+        return mpm.grid_op(scene, gv, gm, (pos, rot, gap), (pos1, rot, gap),
+                           soft, D, off)
+
+    def cm(gv, gm, pos, pos1):
+        grid4 = jnp.concatenate([gv.T, gm[None]], axis=0)
+        return mpm.grid_op_cm(scene, grid4, (pos, rot, gap),
+                              (pos1, rot, gap), soft, D, off).T
+
+    args = (gv, gm, pos, pos + 2e-4)
+    out_r, vjp_r = jax.vjp(ref, *args)
+    out_c, vjp_c = jax.vjp(cm, *args)
+    if mode == "fwd":
+        np.testing.assert_allclose(np.asarray(out_c), np.asarray(out_r),
+                                   atol=1e-12)
+        assert np.abs(np.asarray(out_r)).max() > 0
+        return
+    ct = jnp.asarray(rng.standard_normal(out_r.shape))
+    for a, b in zip(vjp_c(ct), vjp_r(ct)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-9,
+                                   rtol=1e-9)

@@ -133,7 +133,7 @@ def test_vec_incremental_iou_matches_host_env(tmp_path):
 
 def test_sac_consumes_vec_rollout(vec_env):
     """A SAC learner updates from transitions collected by the vectorized
-    env — the TPU-native data path (VERDICT r1 item 10)."""
+    env — the batched on-device data path."""
     from plasticinelab_tpu.algorithms.common import ReplayBuffer
     from plasticinelab_tpu.algorithms.sac.sac import SAC
 

@@ -1,4 +1,4 @@
-"""Isolate TPU while/fori loop per-iteration overhead vs march-body cost."""
+"""Isolate while/fori loop per-iteration overhead vs march-body cost."""
 import os
 import sys
 import time

@@ -1,15 +1,15 @@
 """Stability sweep: every task family, 50 random env steps at |a| <= AMP.
 
-VERDICT round-2 criterion: all 10 families survive >= 50 random steps at
+Criterion: all 10 families survive >= 50 random steps at
 |a| <= 1.0 in float32 (the reference's own NaN dump-and-raise guard stays
-in place, plb/envs/env.py:50-56 semantics). Run on the TPU:
+in place, plb/envs/env.py:50-56 semantics). Run on the GPU:
 
     python tools/stability_sweep.py [amp] [steps] [out.json]
 
 Prints one human line per family and, when an output path is given, writes
 a JSON artifact with per-task status, wallclock, and steady-state forward
 substeps/s (median step time after the compile step) so per-family perf
-regressions are diffable across rounds (VERDICT r2 item 8).
+regressions are diffable across runs.
 """
 import json
 import os
